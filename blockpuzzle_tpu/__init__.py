@@ -1,12 +1,15 @@
-"""blockpuzzle_tpu: a TPU-native vectorized BlockPuzzle RL engine.
+"""blockpuzzle_tpu: a vectorized BlockPuzzle RL engine on the accelerator.
 
-Brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
-Gym environment (matthew9671/BlockPuzzle-gym — mount empty at build time, see
+Brand-new JAX/XLA implementation of the capabilities of the reference Gym
+environment (matthew9671/BlockPuzzle-gym — mount empty at build time, see
 SURVEY.md §0; semantics pinned by the in-repo CPU oracle): batched lockstep
 ``step``/``reset`` over (N, H, W) boards under one XLA program, counter-based
-``jax.random`` piece dealing, fused action masking + auto-reset + observation
-packing, MXU-matmul legality, Pallas kernels for collision/clear, on-device
-PPO/DQN, and multi-host env sharding via ``jax.sharding``.
+``jax.random`` piece dealing, fused bitboard action masking + auto-reset +
+observation packing, on-device PPO/DQN, and multi-device env sharding via
+``jax.sharding``.
+
+Gymnasium is optional: the Gymnasium ids are registered on import only when
+``gymnasium`` is installed; the engine, learners and CLIs never need it.
 """
 
 from blockpuzzle_tpu.config import (
@@ -28,7 +31,7 @@ def register_gym_envs() -> None:
 
     The reference registers its env id in its package ``__init__`` (SURVEY.md
     §1.1 L0).  Ids here: ``BlockPuzzleTpu/BlockPuzzle-v0`` (oracle CPU env)
-    plus one id per preset variant.
+    plus one id per preset variant.  Raises ImportError without gymnasium.
     """
     global _REGISTERED
     if _REGISTERED:
@@ -46,7 +49,10 @@ def register_gym_envs() -> None:
     _REGISTERED = True
 
 
-register_gym_envs()
+try:
+    register_gym_envs()
+except ImportError:  # gymnasium is the optional ``gym`` extra
+    pass
 
 __all__ = [
     "EnvConfig",

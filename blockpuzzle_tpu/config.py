@@ -1,4 +1,4 @@
-"""Frozen configuration dataclasses for the BlockPuzzle TPU engine.
+"""Frozen configuration dataclasses for the BlockPuzzle engine.
 
 The reference (matthew9671/BlockPuzzle-gym) exposes its knobs as ``__init__``
 kwargs on the env class (SURVEY.md §5 "Config / flag system"; the reference
@@ -19,7 +19,7 @@ from typing import Tuple
 
 @dataclasses.dataclass(frozen=True)
 class EnvConfig:
-    """Static game configuration shared by the CPU oracle and the TPU engine.
+    """Static game configuration shared by the CPU oracle and the device engine.
 
     Attributes:
       height, width: board dimensions (cells).

@@ -2,8 +2,8 @@
 
 The reference is single-process with no communication backend; the target
 equivalent is JAX's native runtime: ``jax.distributed.initialize`` for the
-multi-host process group over DCN, and XLA-compiled collectives over ICI
-inside ``jit`` (BASELINE config 5).  The mesh carries two axes:
+multi-process group, and XLA-compiled collectives (NCCL over NVLink between
+the GPUs of a host) inside ``jit`` (BASELINE config 5).  The mesh carries two axes:
 
   * ``dp`` — the env/batch data-parallel axis (envs are independent, so the
     env step needs zero collectives; only learner gradients all-reduce).
@@ -29,11 +29,13 @@ def init_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-host rendezvous over DCN.  No-op when single-process.
+    """Multi-process rendezvous.  No-op when single-process.
 
-    On TPU pods the arguments are auto-detected from the environment;
-    explicit values support manual launches.  Safe to call unconditionally:
-    single-host runs skip initialization.
+    Nothing on a plain GPU machine tells JAX of a cluster, so a
+    multi-process launch passes ``coordinator_address``
+    (``host:port``), ``num_processes`` (or BLOCKPUZZLE_NUM_PROCESSES) and
+    ``process_id`` explicitly.  Safe to call unconditionally: single-process
+    runs skip initialization.
     """
     if num_processes is None:
         num_processes = int(os.environ.get("BLOCKPUZZLE_NUM_PROCESSES", "1"))
@@ -52,10 +54,10 @@ def make_mesh(
 ) -> Mesh:
     """(dp, tp) mesh over all devices; dp = num_devices // tp.
 
-    ICI-friendly layout: ``tp`` is the minor (fastest-varying) axis so
-    tensor-parallel collectives ride neighbor ICI links; ``dp`` spans the
-    rest (and DCN across hosts, where only the once-per-update grad psum
-    crosses).
+    The GPUs of a host are joined all to all (NVLink), so the layout
+    follows the algorithm alone: ``tp`` is the minor axis (each tp group is
+    a run of consecutive devices), ``dp`` spans the rest; across hosts only
+    the once-per-update gradient all-reduce crosses the network.
     """
     devices = list(devices if devices is not None else jax.devices())
     n = len(devices)

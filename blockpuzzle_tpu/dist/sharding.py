@@ -4,8 +4,8 @@ Regex-over-parameter-path rules (the standard JAX "match partition rules"
 pattern) mapped onto our (dp, tp) mesh:
 
   * env state, rollout batches, replay buffers: leading axis on ``dp``.
-  * Dense kernels flagged by ``nn.with_partitioning`` in the networks carry
-    their own ("tp",) metadata — honored via flax's logical partitioning.
+  * dense kernels named in PARAM_RULES: Megatron column/row split on
+    ``tp`` — the only place the networks' tensor-parallel layout lives.
   * everything else (small conv kernels, biases, opt scalars): replicated.
 
 At default model sizes tp=1 and every param replicates; the rules exist so
@@ -18,46 +18,50 @@ import re
 from typing import Any
 
 import jax
-from flax import traverse_util
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from blockpuzzle_tpu.dist.mesh import ENV_AXIS
 
 # (regex over '/'-joined param path, PartitionSpec) — first match wins.
-# NOTE: kernels flagged by nn.with_partitioning flatten as
-# ".../kernel/value" (flax boxes them in Partitioned), so rules must not
-# anchor on "kernel$".
 PARAM_RULES = [
     # column-parallel hidden projection: (in, hidden) -> shard hidden
     (r"Torso_0/hidden_proj/kernel", P(None, "tp")),
     # column-parallel mlp-torso input matmul: (cells, width) -> shard width
     (r"Torso_0/mlp_0/kernel", P(None, "tp")),
-    # row-parallel output heads: (hidden, out) -> shard hidden
-    # (MXUDense = bf16-operand/f32-accumulate dense, learn/networks.py).
-    # \d+ because flax auto-numbers instances: the dueling QNetwork builds
-    # MXUDense_0 (value) AND MXUDense_1 (advantage), and anchoring on _0
-    # silently replicated the advantage kernel at tp>1 (ADVICE r3).
-    (r"MXUDense_\d+/kernel", P("tp", None)),
+    # row-parallel output heads: (hidden, out) -> shard hidden.  \d+: the
+    # dueling QNetwork has two heads (Head_0 value, Head_1 advantage), and
+    # both must carry the rule at tp>1.
+    (r"Head_\d+/kernel", P("tp", None)),
     (r".*", P()),
 ]
 
 
+def _path_str(keypath) -> str:
+    """'/'-joined names of a pytree key path (dict keys, attribute names)."""
+    parts = []
+    for k in keypath:
+        for attr in ("name", "key", "idx"):
+            if hasattr(k, attr):
+                parts.append(str(getattr(k, attr)))
+                break
+        else:
+            parts.append(str(k))
+    return "/".join(parts)
+
+
+def _rule_spec(path: str, leaf: Any) -> P:
+    if hasattr(leaf, "ndim") and leaf.ndim > 1:
+        for rule, s in PARAM_RULES:
+            if re.search(rule, path):
+                return s
+    return P()
+
+
 def param_spec(params: Any) -> Any:
-    """Pytree of PartitionSpec for a flax param tree, via PARAM_RULES."""
-    flat = traverse_util.flatten_dict(params, sep="/")
-    specs = {}
-    for path, leaf in flat.items():
-        # nn.with_partitioning boxes kernels in flax Partitioned (no .ndim);
-        # look through the box or every tp-flagged leaf silently gets P()
-        leaf = getattr(leaf, "value", leaf)
-        spec = P()
-        if hasattr(leaf, "ndim") and leaf.ndim > 1:
-            for rule, s in PARAM_RULES:
-                if re.search(rule, path):
-                    spec = s
-                    break
-        specs[path] = spec
-    return traverse_util.unflatten_dict(specs, sep="/")
+    """Pytree of PartitionSpec for a param tree, via PARAM_RULES."""
+    return jax.tree_util.tree_map_with_path(
+        lambda kp, leaf: _rule_spec(_path_str(kp), leaf), params
+    )
 
 
 def batched_spec(pytree: Any) -> Any:
@@ -78,14 +82,9 @@ def train_state_spec(train_state: Any, params_field: str = "params") -> Any:
     env_state / obs / replay shard on dp; scalars and keys replicate.
     """
 
-    def spec_for(path_parts, leaf):
-        path = "/".join(str(p) for p in path_parts)
+    def spec_for(path, leaf):
         if path.startswith(("params", "opt_state", "target_params")):
-            if hasattr(leaf, "ndim") and leaf.ndim > 1:
-                for rule, s in PARAM_RULES:
-                    if re.search(rule, path):
-                        return s
-            return P()
+            return _rule_spec(path, leaf)
         if path.startswith(("key", "update_count", "iter_count", "grad_count")):
             return P()
         if path.endswith(("cursor", "filled")):
@@ -100,20 +99,9 @@ def train_state_spec(train_state: Any, params_field: str = "params") -> Any:
             return P(ENV_AXIS)
         return P()
 
-    flat = jax.tree_util.tree_flatten_with_path(train_state)[0]
-    treedef = jax.tree_util.tree_structure(train_state)
-    specs = []
-    for keypath, leaf in flat:
-        parts = []
-        for k in keypath:
-            if hasattr(k, "name"):
-                parts.append(k.name)
-            elif hasattr(k, "key"):
-                parts.append(k.key)
-            else:
-                parts.append(str(k))
-        specs.append(spec_for(parts, leaf))
-    return jax.tree_util.tree_unflatten(treedef, specs)
+    return jax.tree_util.tree_map_with_path(
+        lambda kp, leaf: spec_for(_path_str(kp), leaf), train_state
+    )
 
 
 def to_named(mesh: Mesh, spec_tree: Any) -> Any:

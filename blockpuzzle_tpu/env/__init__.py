@@ -1,4 +1,4 @@
-"""Vectorized TPU env engine (layer T4 of SURVEY.md §1.2)."""
+"""Vectorized device env engine (layer T4 of SURVEY.md §1.2)."""
 
 from blockpuzzle_tpu.env.core import VecBlockPuzzle, make_env
 from blockpuzzle_tpu.env.state import EnvState, TimeStep

@@ -1,20 +1,32 @@
 """Batched environment state and timestep pytrees.
 
 All arrays carry a leading env axis N (SURVEY.md §1.2 layer T4).  State is a
-``flax.struct`` pytree so it can flow through ``jit`` / ``lax.scan`` /
+frozen-dataclass pytree so it can flow through ``jit`` / ``lax.scan`` /
 ``donate_argnums`` and be sharded on an ``("env",)`` mesh axis unchanged.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree whose fields are all leaves
+    (subtrees), with a ``.replace(**changes)`` copy method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[],
+    )
+
+
+@pytree_dataclass
 class EnvState:
     """Per-env game state, leading axis N.
 
@@ -47,7 +59,7 @@ class EnvState:
         return self.board.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class TimeStep:
     """Output of one batched step: obs + reward/done + info, all (N, ...).
 

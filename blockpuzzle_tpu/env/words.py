@@ -1,7 +1,6 @@
 """Packed legal-words mask + rank-select uniform sampler (serving path).
 
-Round-5 promotion of the sampler-folding candidate (VERDICT r4 item 8 /
-ROADMAP round-5 item 4): a serving consumer that accepts the legal mask
+A serving consumer that accepts the legal mask
 as PACKED u32 row words — bit ``c`` of word ``s*H + r`` = action
 ``(s*H + r)*W + c`` is legal — can sample uniform-legal actions with one
 (N,) uniform draw + popcount rank-select over S*H words, instead of the
@@ -13,8 +12,8 @@ These are PURE functions over a packed-state engine (``make_env()``
 default); they compose outside ``step`` so the engine's compiled
 programs (and the learner's update HLO) are untouched.  Bit-parity with
 the engine's bool mask and exact sampler uniformity are pinned in
-``tests/test_bench_words.py``; hardware numbers in docs/RESULTS.md
-(scripts/bench_words.py is the measurement harness).
+``tests/test_bench_words.py``; ``BP_BENCH_SAMPLER=words python bench.py``
+times it against the bool-mask sampler.
 """
 
 from __future__ import annotations

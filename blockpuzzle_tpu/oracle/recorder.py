@@ -2,11 +2,11 @@
 
 Runs the CPU oracle with a seeded random policy (uniform over the legal-action
 mask, drawn from the oracle's own ``random.Random`` so the whole trajectory is
-reproducible from one seed) and records everything the batched TPU engine must
-reproduce bit-for-bit: boards, queues, dealt pieces, actions, rewards, and
+reproducible from one seed) and records everything the batched device engine
+must reproduce bit-for-bit: boards, queues, dealt pieces, actions, rewards, and
 termination flags.
 
-The dealt-piece stream is the key artifact: the TPU engine's parity mode
+The dealt-piece stream is the key artifact: the device engine's parity mode
 consumes it directly instead of re-deriving Python-MT19937 draws on device
 (SURVEY.md §7.1 PR2 — "bit-exact vs Python MT19937" via piece-stream
 injection).
@@ -21,7 +21,7 @@ from typing import List, Optional
 import numpy as np
 
 from blockpuzzle_tpu.config import EnvConfig
-from blockpuzzle_tpu.oracle.env import BlockPuzzleOracleEnv
+from blockpuzzle_tpu.oracle.game import BlockPuzzleGame
 
 
 @dataclasses.dataclass
@@ -43,7 +43,7 @@ class Trajectory:
     episode_return: float
 
 
-class RecordingOracle(BlockPuzzleOracleEnv):
+class RecordingOracle(BlockPuzzleGame):
     """Oracle that logs every RNG deal, for piece-stream injection."""
 
     def __init__(self, *args, **kwargs):
@@ -66,8 +66,7 @@ def record_trajectory(
 
     The policy stream defaults to ``seed + 1`` so it is decorrelated from
     the env's deal stream (two ``random.Random(seed)`` instances emit
-    identical sequences, which narrows trajectory diversity — VERDICT.md
-    round 1, weak #6).
+    identical sequences, which narrows trajectory diversity).
     """
     env = RecordingOracle(cfg)
     policy_rng = random.Random(seed + 1 if policy_seed is None else policy_seed)

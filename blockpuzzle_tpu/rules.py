@@ -1,17 +1,18 @@
 """Canonical game rules data: piece library and precomputed placement tables.
 
 This module is the single source of truth for the game spec shared by the CPU
-oracle (``blockpuzzle_tpu.oracle``) and the batched TPU engine
-(``blockpuzzle_tpu.env``).  The reference mount (/root/reference) was empty at
-build time (SURVEY.md §0), so the piece set and ordering below are the
+oracle (``blockpuzzle_tpu.oracle``) and the batched device engine
+(``blockpuzzle_tpu.env``).  The reference mount was empty at build time
+(SURVEY.md §0), so the piece set and ordering below are the
 canonical in-repo spec: the classic 19-piece 1010! library described in
 SURVEY.md §2.1 "Piece set".  Ordering is fixed and load-bearing — action ids
 and RNG parity both depend on it.
 
-Design note (TPU-first): legality for *every* (piece, row, col) placement is
+Design note: legality for *every* (piece, row, col) placement can be
 expressed as a single matmul ``board_flat @ COVER_T`` — occupied-cell counts
-under each candidate footprint — which maps straight onto the MXU instead of
-the reference's per-placement Python scan (SURVEY.md §3.2).  The tables here
+under each candidate footprint — in place of the reference's per-placement
+Python scan (SURVEY.md §3.2); the engine's ``mask_impl="matmul"`` uses it,
+its default packed bitboard mask does not.  The tables here
 are plain NumPy; the engine closes over them as jit-time constants.
 """
 
@@ -77,10 +78,9 @@ PIECE_SETS: Dict[str, List[List[List[int]]]] = {
 def decompose_rects(grid: np.ndarray) -> List[Tuple[int, int, int, int]]:
     """Decompose a piece grid into ≤2 rectangles whose union is the piece.
 
-    TPU-first trick: a footprint that is a union of two rectangles can be
-    materialized arithmetically from broadcasted row/col indices — no table
-    gather (gathers run on the TPU scalar core and dominated the profiled
-    step time).  Every piece in the classic 1010! set is 1 rect (bars,
+    A footprint that is a union of two rectangles can be materialized
+    arithmetically from broadcasted row/col indices — no table gather
+    (CLAUDE.md hot-path rule).  Every piece in the classic 1010! set is 1 rect (bars,
     squares) or 2 rects (small/big L).  Returns [(dr, dc, h, w), ...].
     Raises ValueError if no ≤2-rect decomposition exists.
     """
@@ -254,8 +254,8 @@ def piece_plane_table(cfg: EnvConfig) -> np.ndarray:
     The "piece-plane" observation mode (``EnvConfig.obs_planes``) exposes the
     queue spatially — one (H, W) binary plane per hand slot — instead of (or
     alongside) integer piece ids, so CNN policies can convolve board and hand
-    together.  TPU-first: a slot's plane is ``one_hot(pid) @ this_table`` — a
-    tiny MXU matmul, no gather (CLAUDE.md hot-path rule).  The empty-slot
+    together.  A slot's plane is ``one_hot(pid) @ this_table`` — a tiny
+    matmul, no gather (CLAUDE.md hot-path rule).  The empty-slot
     sentinel maps to the all-zero plane (the one-hot of ``num_pieces`` is the
     zero vector).
     """

@@ -8,12 +8,15 @@ from blockpuzzle_tpu.utils.debug import (
     validate_env_state,
 )
 from blockpuzzle_tpu.utils.metrics import MetricsLogger, Throughput
+from blockpuzzle_tpu.utils.platform import add_platform_arg, select_platform
 from blockpuzzle_tpu.utils.profiling import ScopeTimer, device_trace
 
 __all__ = [
     "CheckpointManager",
     "MetricsLogger",
     "Throughput",
+    "add_platform_arg",
+    "select_platform",
     "ScopeTimer",
     "device_trace",
     "enable_compilation_cache",

@@ -1,6 +1,6 @@
 """Quickstart: every public surface in ~60 lines.
 
-Run on any backend:  python examples/quickstart.py  (add --cpu off-TPU)
+Run on any backend:  python examples/quickstart.py  (add --cpu without a GPU)
 """
 
 import argparse
@@ -77,7 +77,7 @@ print(f"engine: 100x1024 steps, reward/step {float(rewards.mean()):.2f}")
 # a consumer that wants the legal mask as (N, S*H) u32 row words instead
 # of the (N, A) bool tensor — e.g. to ship it over a wire — samples
 # uniform-legal actions via popcount rank-select (bit-parity-tested; NOT
-# the step default: measured 0.88x the argmax path, docs/RESULTS.md)
+# the step default; its rate on the GPU is not measured yet)
 from blockpuzzle_tpu.env import words
 
 wmask = words.legal_words(engine, state.board, state.queue)

@@ -1,8 +1,7 @@
 """Smoke-run scripts/bench_actor.py and scripts/roofline.py (CPU backend).
 
-These are the round-3 perf-evidence harnesses (VERDICT r2 items 2-3);
-asserting their JSON contracts here keeps them runnable when the recorded
-hardware numbers need reproducing.
+Asserting their JSON contracts here keeps them runnable when a hardware
+number needs reproducing on the GPU.
 """
 
 import json
@@ -47,7 +46,8 @@ def test_roofline_smoke():
         "--chunk", "8", "--no-time",
     )
     assert rec["metric"] == "roofline"
-    # XLA's cost model must report both axes for the bound arithmetic
+    # XLA's cost model must report both axes for the bound arithmetic; a
+    # CPU run has no device peak, so no bound is computed
     assert rec["flops_per_step_env"] > 0
     assert rec["bytes_per_step_env"] > 0
-    assert rec["hbm_bound_steps_per_s"] > 0
+    assert "hbm_bound_steps_per_s" not in rec

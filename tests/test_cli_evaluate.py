@@ -15,12 +15,14 @@ import pytest
 def test_train_checkpoint_evaluate_round_trip(tmp_path, capsys):
     ck = str(tmp_path / "ck")
     rc = train.main([
+        "--platform", "cpu",
         "--updates", "2", "--num-envs", "16", "--rollout-len", "8",
         "--minibatches", "2", "--torso", "mlp", "--mlp-width", "64",
         "--checkpoint-dir", ck, "--checkpoint-every", "2",
     ])
     assert rc == 0
     rc = evaluate.main([
+        "--platform", "cpu",
         "--checkpoint-dir", ck, "--torso", "mlp", "--mlp-width", "64",
         "--num-envs", "32", "--steps", "10", "--greedy",
     ])
@@ -39,6 +41,7 @@ def test_evaluate_autofills_from_run_meta(tmp_path, capsys):
     this mlp-64 checkpoint trained with an EnvConfig override)."""
     ck = str(tmp_path / "ck")
     rc = train.main([
+        "--platform", "cpu",
         "--updates", "2", "--num-envs", "16", "--rollout-len", "8",
         "--minibatches", "2", "--torso", "mlp", "--mlp-width", "64",
         "--env", "cell_reward=2.0",
@@ -46,6 +49,7 @@ def test_evaluate_autofills_from_run_meta(tmp_path, capsys):
     ])
     assert rc == 0
     rc = evaluate.main([
+        "--platform", "cpu",
         "--checkpoint-dir", ck, "--num-envs", "32", "--steps", "8",
     ])
     assert rc == 0
@@ -71,6 +75,7 @@ def test_evaluate_explicit_flag_beats_run_meta(tmp_path, capsys):
     """An explicit --env flag applies AFTER the recorded overrides."""
     ck = str(tmp_path / "ck")
     rc = train.main([
+        "--platform", "cpu",
         "--updates", "2", "--num-envs", "16", "--rollout-len", "8",
         "--minibatches", "2", "--torso", "mlp", "--mlp-width", "64",
         "--env", "cell_reward=2.0",
@@ -79,6 +84,7 @@ def test_evaluate_explicit_flag_beats_run_meta(tmp_path, capsys):
     assert rc == 0
     # rewards are env semantics, not network shape: overriding is legal
     rc = evaluate.main([
+        "--platform", "cpu",
         "--checkpoint-dir", ck, "--num-envs", "16", "--steps", "4",
         "--env", "cell_reward=1.0",
     ])
@@ -91,12 +97,14 @@ def test_evaluate_dqn_algo_from_run_meta(tmp_path, capsys):
     """--algo dqn is auto-detected (QNetwork, not ActorCritic, template)."""
     ck = str(tmp_path / "ck")
     rc = train.main([
+        "--platform", "cpu",
         "--algo", "dqn", "--updates", "2", "--num-envs", "16",
         "--buffer-size", "512", "--torso", "mlp", "--mlp-width", "64",
         "--checkpoint-dir", ck, "--checkpoint-every", "2",
     ])
     assert rc == 0
     rc = evaluate.main([
+        "--platform", "cpu",
         "--checkpoint-dir", ck, "--num-envs", "16", "--steps", "4",
     ])
     assert rc == 0

@@ -2,7 +2,7 @@
 
 Validates that the (dp, tp) mesh, the partition rules, and the full sharded
 PPO update compile and execute with real multi-device shardings — the CI
-stand-in for a pod slice (BASELINE config 5).
+stand-in for a multi-GPU host (BASELINE config 5).
 """
 
 import numpy as np
@@ -147,23 +147,26 @@ def test_sharded_dqn_iteration_runs_on_mesh():
 
 
 def test_param_spec_applies_rules_to_boxed_kernels():
-    """param_spec must look through flax Partitioned boxes (ADVICE.md:
-    boxed kernels lack .ndim and previously fell through to P())."""
+    """param_spec applies the tp column rule to the torso's hidden kernel
+    (the rules are the only record of the tensor-parallel layout)."""
     env = make_env(default_config())
     ppo = PPO(env, PPOConfig(num_envs=8, rollout_len=4, hidden=64,
                              channels=(8,), num_epochs=1, num_minibatches=2))
     state = ppo.init(jax.random.key(0))
     spec = dist.param_spec(state.params)
-    from flax import traverse_util
-
-    flat = traverse_util.flatten_dict(spec, sep="/")
+    flat = {
+        "/".join(str(k.key) for k in path): s
+        for path, s in jax.tree_util.tree_flatten_with_path(
+            spec, is_leaf=lambda x: isinstance(x, P)
+        )[0]
+    }
     torso = [k for k in flat if "Torso_0/hidden_proj/kernel" in k]
     assert torso and all(flat[k] == P(None, "tp") for k in torso), flat
 
 
 def test_param_rules_shard_head_kernels():
-    """The row-parallel head rule must actually match the flax param paths
-    (Partitioned-boxed kernels flatten with a trailing /value element)."""
+    """The row-parallel head rule must actually match the param paths of
+    the train state (params and the optimizer moments that mirror them)."""
     env = make_env(default_config())
     ppo = PPO(env, PPOConfig(num_envs=8, rollout_len=4, hidden=64,
                              channels=(8,), num_epochs=1, num_minibatches=2))
@@ -178,7 +181,7 @@ def test_param_rules_shard_head_kernels():
     torso = [k for k in flat if "Torso_0/hidden_proj/kernel" in k]
     heads = [
         k for k in flat
-        if "/MXUDense_0/kernel" in k and "params/" in k
+        if "/Head_0/kernel" in k and "params/" in k
     ]
     assert torso and all(flat[k] == P(None, "tp") for k in torso), flat
     assert heads and all(flat[k] == P("tp", None) for k in heads), heads
@@ -211,11 +214,10 @@ def test_param_rules_shard_mlp_torso_kernel():
 
 
 def test_param_rules_shard_dueling_heads():
-    """Flax auto-numbers MXUDense instances, so the dueling QNetwork's two
-    head kernels are MXUDense_0 (value) AND MXUDense_1 (advantage); the old
-    rule anchored on _0 and silently replicated the advantage kernel at
-    tp>1 (ADVICE r3).  Both must carry the row-parallel tp rule, and the
-    dueling iteration must execute sharded on a tp=2 mesh."""
+    """The dueling QNetwork's two head kernels are Head_0 (value) AND
+    Head_1 (advantage); a rule anchored on _0 would silently replicate the
+    advantage kernel at tp>1.  Both must carry the row-parallel tp rule,
+    and the dueling iteration must execute sharded on a tp=2 mesh."""
     from blockpuzzle_tpu.learn import DQN, DQNConfig
 
     env = make_env(default_config())
@@ -230,7 +232,7 @@ def test_param_rules_shard_dueling_heads():
             spec, is_leaf=lambda x: isinstance(x, P)
         )[0]
     }
-    for name in ("MXUDense_0", "MXUDense_1"):
+    for name in ("Head_0", "Head_1"):
         ks = [k for k in flat if f"/{name}/kernel" in k and "params/" in k]
         assert ks and all(flat[k] == P("tp", None) for k in ks), (name, flat)
     mesh = dist.make_mesh(tp=2)
@@ -291,3 +293,16 @@ def test_sharded_words_sampler_matches_unsharded():
     # every sampled action is legal on the bool mask
     mask = np.asarray(ts.action_mask)
     assert mask[np.arange(32), np.asarray(out)].all()
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_sharded_equivalence_on_four_devices(tp):
+    """The check chip_smoke.py --four-gpus runs on real cards, rehearsed on
+    four virtual CPU devices at dp=4,tp=1 and dp=2,tp=2: sharded PPO update
+    == unsharded, DQN iterations fill the replay, every array on the mesh."""
+    from blockpuzzle_tpu.dist.equivalence import check_sharded_equivalence
+
+    r = check_sharded_equivalence(jax.devices()[:4], tp=tp)
+    assert (r["dp"], r["tp"]) == (4 // tp, tp)
+    assert r["param_outlier_frac"] == 0.0
+    assert r["dqn_buffer_filled"] == 3 * 4 * (4 // tp)

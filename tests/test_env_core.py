@@ -337,7 +337,7 @@ def test_out_of_range_action_is_illegal_noop():
 
 
 def test_int8_mask_dtype_bit_equal():
-    """mask_dtype="int8" (2x MXU rate on v5e) must match bf16 bit-for-bit.
+    """mask_dtype="int8" (s8xs8->s32 matmul) must match bf16 bit-for-bit.
 
     Counts are <= 9 occupied cells per footprint plus the 1024 out-of-bounds
     bias — exact in both s32 accumulation and bf16 — so the two paths are
@@ -569,18 +569,17 @@ def test_packed_state_validation():
                  state_impl="packed")
     with pytest.raises(ValueError, match="unknown state_impl"):
         make_env(default_config(), state_impl="bogus")
-    with pytest.raises(ValueError, match="backend"):
-        make_env(default_config(), backend="pallas", state_impl="packed")
+    with pytest.raises(TypeError, match="backend"):
+        make_env(default_config(), backend="pallas")  # option removed
     with pytest.raises(ValueError, match="implies mask_impl"):
         make_env(default_config(), state_impl="packed", mask_impl="shift")
 
 
 def test_make_env_defaults_to_packed_bitboard():
-    """packed state + bitboard mask won the round-4 hardware ladder
-    (293.5M vs 209.2M vs 151.4M steps/s — docs/RESULTS.md); they are the
-    production default for every consumer whose board rows fit a u32
-    word.  Wider boards fall back to u8 + shift; an explicit non-bitboard
-    mask request keeps the u8 layout (mask comparisons need it)."""
+    """packed state + bitboard mask are the production default for every
+    consumer whose board rows fit a u32 word.  Wider boards fall back to
+    u8 + shift; an explicit non-bitboard mask request keeps the u8 layout
+    (mask comparisons need it)."""
     env = make_env(default_config())
     assert env.state_impl == "packed" and env.mask_impl == "bitboard"
     import dataclasses
@@ -589,8 +588,8 @@ def test_make_env_defaults_to_packed_bitboard():
     assert wide.state_impl == "u8" and wide.mask_impl == "shift"
     shift = make_env(default_config(), mask_impl="shift")
     assert shift.state_impl == "u8" and shift.mask_impl == "shift"
-    pal = make_env(default_config(), backend="pallas")
-    assert pal.state_impl == "u8"
+    mm = make_env(default_config(), mask_impl="matmul", mask_dtype="int8")
+    assert mm.state_impl == "u8" and mm.mask_impl == "matmul"
 
 
 def test_encode_board_clamps_nonbinary_cells():

@@ -202,7 +202,7 @@ def test_ppo_mlp_width_is_plumbed(env):
     ppo = small_ppo(env, torso="mlp", mlp_width=96)
     state = ppo.init(jax.random.key(14))
     kernel = state.params["params"]["Torso_0"]["mlp_0"]["kernel"]
-    assert kernel.value.shape[-1] == 96  # Partitioned box around the array
+    assert kernel.shape[-1] == 96
     state, metrics = ppo.update_jit(state)
     assert np.isfinite(float(metrics["loss"]))
 
@@ -215,7 +215,7 @@ def test_dqn_mlp_width_is_plumbed(env):
     dqn = DQN(env, cfg)
     state = dqn.init(jax.random.key(15))
     kernel = state.params["params"]["Torso_0"]["mlp_0"]["kernel"]
-    assert kernel.value.shape[-1] == 48
+    assert kernel.shape[-1] == 48
     state, m = dqn.iteration_jit(state)
     assert int(m["buffer_filled"]) == 16
 
@@ -522,14 +522,10 @@ def test_dqn_dueling_trains(env):
     dqn = DQN(env, cfg)
     state = dqn.init(jax.random.key(0))
     # two head matmuls instead of one: value (.., 1) + advantage (.., A)
-    def kshape(p):  # kernels are flax Partitioned boxes (tp metadata)
-        k = p["kernel"]
-        return (k.value if hasattr(k, "value") else k).shape
-
     head_outs = sorted(
-        kshape(p)[-1]
+        p["kernel"].shape[-1]
         for name, p in state.params["params"].items()
-        if name.startswith("MXUDense")
+        if name.startswith("Head_")
     )
     assert head_outs == [1, env.cfg.num_actions()]
     # illegal actions stay pinned regardless of the dueling combine

@@ -2,7 +2,7 @@
 
 Covers the CLAUDE.md invariant for new engine semantics: oracle change +
 engine change + parity test in one commit.  The oracle renders planes from
-the raw piece grids; the engine renders them with a one-hot MXU matmul
+the raw piece grids; the engine renders them with a one-hot matmul
 against ``rules.piece_plane_table`` — these tests pin the two equal.
 """
 

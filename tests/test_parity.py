@@ -1,4 +1,4 @@
-"""Seeded trajectory parity: batched TPU engine vs the CPU oracle.
+"""Seeded trajectory parity: batched device engine vs the CPU oracle.
 
 BASELINE config 1 / SURVEY.md §3.5: record a seeded random-policy episode on
 the oracle, replay the same actions into the jax engine with the oracle's

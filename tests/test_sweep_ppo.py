@@ -74,7 +74,9 @@ def test_sweep_checkpoint_every_saves_mid_run_steps(tmp_path):
         cwd=str(repo),
     )
     assert r.returncode == 0, r.stderr[-2000:]
-    steps = sorted(int(p.name) for p in ckpt.iterdir() if p.name.isdigit())
+    from blockpuzzle_tpu.utils import CheckpointManager
+
+    steps = CheckpointManager(str(ckpt)).all_steps()
     # periodic saves at 2 and 4 plus the final forced save at 5
     assert steps == [2, 4, 5], steps
 

@@ -7,6 +7,7 @@ import json
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
 from blockpuzzle_tpu.config import default_config
 from blockpuzzle_tpu.env import make_env
@@ -163,9 +164,7 @@ def test_restore_params_across_optimizer_mismatch(tmp_path):
 
     eval_ppo.tx = optax.sgd(1e-3)
     template = eval_ppo.init(jax.random.key(1))
-    # fresh manager, as in a real eval process (a single orbax manager
-    # registers one handler type per item; mixing Standard save +
-    # PyTree partial-restore on the same instance is rejected)
+    # fresh manager, as in a real eval process
     mgr.close()
     mgr = CheckpointManager(str(tmp_path / "ckpt"))
     params = mgr.restore_params(template.params)
@@ -177,8 +176,7 @@ def test_restore_params_across_optimizer_mismatch(tmp_path):
 
 
 def test_restore_params_on_used_manager(tmp_path):
-    """restore_params must work on a manager that already save()d (orbax
-    binds one handler type per manager; the fix uses a dedicated one)."""
+    """restore_params must work on a manager that already save()d."""
     ppo = small_ppo()
     state = ppo.init(jax.random.key(0))
     mgr = CheckpointManager(str(tmp_path / "ckpt"))
@@ -198,16 +196,7 @@ def test_restore_params_from_eval_shape_template(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "ckpt"))
     mgr.save(1, state)
     mgr.close()
-    import jax.numpy as jnp2
-
-    cfg = ppo.env.cfg
-    template = jax.eval_shape(
-        ppo.net.init,
-        jax.random.key(0),
-        jnp2.zeros((1, cfg.height, cfg.width), jnp2.uint8),
-        jnp2.zeros((1, cfg.queue_size), jnp2.int32),
-        jnp2.zeros((1, cfg.num_actions()), bool),
-    )
+    template = jax.eval_shape(ppo.net.init, jax.random.key(0))
     mgr2 = CheckpointManager(str(tmp_path / "ckpt"))
     params = mgr2.restore_params(template)
     a = jax.tree.leaves(jax.tree.map(np.asarray, state.params))
@@ -270,3 +259,134 @@ def test_restore_still_raises_on_shape_mismatch(tmp_path):
     with pytest.raises(ValueError):
         mgr2.restore({"a": jnp.zeros((8,)), "b": jnp.int32(0)})
     mgr2.close()
+
+
+# -- npz checkpoint format ---------------------------------------------------
+
+
+@pytest.mark.parametrize("impl", ["rbg", "threefry2x32"])
+def test_checkpoint_roundtrip_typed_keys_and_bf16(tmp_path, impl):
+    """Typed PRNG keys come back with their impl; bf16 leaves bit-exact."""
+    keys = jax.random.split(jax.random.key(3, impl=impl), 5)
+    state = {"keys": keys, "w": jnp.arange(6, dtype=jnp.bfloat16) / 3,
+             "n": jnp.int32(4)}
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, state)
+    template = {"keys": jax.random.split(jax.random.key(0, impl=impl), 5),
+                "w": jnp.zeros(6, jnp.bfloat16), "n": jnp.int32(0)}
+    out = CheckpointManager(str(tmp_path / "ck")).restore(template)
+    assert str(jax.random.key_impl(out["keys"])) == impl
+    np.testing.assert_array_equal(np.asarray(jax.random.key_data(out["keys"])),
+                                  np.asarray(jax.random.key_data(keys)))
+    assert out["w"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(out["w"]), np.asarray(state["w"]))
+    assert int(out["n"]) == 4
+
+
+def test_checkpoint_max_to_keep(tmp_path):
+    mgr = CheckpointManager(str(tmp_path / "ck"), max_to_keep=2)
+    for step in range(1, 6):
+        mgr.save(step, {"x": jnp.float32(step)})
+    assert mgr.all_steps() == [4, 5] and mgr.latest_step() == 5
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
+        "4.npz", "5.npz"
+    ]
+    assert float(mgr.restore({"x": jnp.float32(0)}, step=4)["x"]) == 4.0
+
+
+def test_checkpoint_write_is_atomic(tmp_path, monkeypatch):
+    """A save that dies mid-write leaves the earlier steps intact, no
+    partial step file and no temporary file behind."""
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, {"x": jnp.arange(4.0)})
+
+    def dying_savez(f, **arrays):
+        f.write(b"PK\x03\x04 half a file")
+        raise OSError("disk full")
+
+    monkeypatch.setattr(np, "savez", dying_savez)
+    with pytest.raises(OSError, match="disk full"):
+        mgr.save(2, {"x": jnp.arange(4.0) + 1})
+    monkeypatch.undo()
+    assert mgr.all_steps() == [1]
+    assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == ["1.npz"]
+    np.testing.assert_array_equal(
+        np.asarray(mgr.restore({"x": jnp.zeros(4)})["x"]), np.arange(4.0)
+    )
+
+
+def test_checkpoint_restore_places_on_template_sharding(tmp_path):
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from blockpuzzle_tpu import dist
+
+    mesh = dist.make_mesh()
+    sharding = NamedSharding(mesh, P("dp"))
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, {"b": jnp.arange(16, dtype=jnp.uint32)})
+    template = {"b": jax.device_put(jnp.zeros(16, jnp.uint32), sharding)}
+    out = mgr.restore(template)
+    assert out["b"].sharding == sharding
+    np.testing.assert_array_equal(np.asarray(out["b"]), np.arange(16))
+
+
+def test_checkpoint_restore_rejects_removed_leaf(tmp_path):
+    """A saved leaf the template no longer has is a layout change, not a
+    new field: restoring would silently drop state, so it raises."""
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    mgr.save(1, {"a": jnp.zeros(2), "gone": jnp.ones(2)})
+    with pytest.raises(ValueError, match="gone"):
+        mgr.restore({"a": jnp.zeros(2)})
+
+
+# -- compile cache ------------------------------------------------------------
+
+
+@pytest.fixture
+def cache_config():
+    """Restore the cache settings enable_compilation_cache may change."""
+    names = ("jax_compilation_cache_dir",
+             "jax_persistent_cache_min_compile_time_secs",
+             "jax_persistent_cache_min_entry_size_bytes")
+    saved = {n: getattr(jax.config, n) for n in names}
+    yield
+    for n, v in saved.items():
+        jax.config.update(n, v)
+
+
+def test_compile_cache_off_on_cpu(monkeypatch, cache_config):
+    from blockpuzzle_tpu.utils import compile_cache
+
+    monkeypatch.delenv(compile_cache.CACHE_ENV_VAR, raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    assert compile_cache.enable_compilation_cache() == ""
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_in_checkout(monkeypatch, cache_config):
+    import pathlib
+
+    from blockpuzzle_tpu.utils import compile_cache
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    monkeypatch.delenv(compile_cache.CACHE_ENV_VAR, raising=False)
+    monkeypatch.setattr(compile_cache.jax, "default_backend", lambda: "gpu")
+    path = compile_cache.enable_compilation_cache()
+    assert path == str(repo / ".jax_cache") == compile_cache.DEFAULT_CACHE_DIR
+    assert jax.config.jax_compilation_cache_dir == path
+    assert ".jax_cache/" in (repo / ".gitignore").read_text().split()
+
+
+def test_compile_cache_env_var_honoured(monkeypatch, tmp_path, cache_config):
+    """With JAX_COMPILATION_CACHE_DIR set, that directory is the cache and
+    the code sets no path of its own (JAX reads the variable itself)."""
+    from blockpuzzle_tpu.utils import compile_cache
+
+    target = str(tmp_path / "xla")
+    monkeypatch.setenv(compile_cache.CACHE_ENV_VAR, target)
+    monkeypatch.setattr(compile_cache.jax, "default_backend", lambda: "gpu")
+    before = jax.config.jax_compilation_cache_dir
+    assert compile_cache.enable_compilation_cache() == target
+    assert compile_cache.cache_dir() == target
+    assert jax.config.jax_compilation_cache_dir == before
+    assert (tmp_path / "xla").is_dir()

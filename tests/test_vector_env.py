@@ -1,4 +1,4 @@
-"""Gymnasium VectorEnv adapter tests (TPU engine behind the Gym surface)."""
+"""Gymnasium VectorEnv adapter tests (device engine behind the Gym surface)."""
 
 import numpy as np
 import pytest
